@@ -20,11 +20,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import numpy as np
 
-from raytracer_tpu import PathTracer, Scene
-from raytracer_tpu.io import artifacts
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.fp16 import unpack_bounds_u32
-from raytracer_tpu.utils.image import write_png
+from raytracer import PathTracer, Scene
+from raytracer.io import artifacts
+from raytracer.utils import procgen
+from raytracer.utils.fp16 import unpack_bounds_u32
+from raytracer.utils.compile_cache import enable_compile_cache
+from raytracer.utils.image import write_png
 
 _EDGES = [
     (0, 1), (1, 3), (3, 2), (2, 0),
@@ -84,6 +85,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="data/debug.png")
     ap.add_argument("--json", default="data/BVH_full.json")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     if args.glb:
         scene = Scene().load_glb(args.glb, normalize=True, mode="cube")

@@ -22,18 +22,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import os
-
-if os.environ.get("RT_CPU"):  # force CPU backend (env JAX_PLATFORMS is
-    import jax                # latched before we run — override via config)
-
-    jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
-from raytracer_tpu import FPSCamera, PathTracer, Scene
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.image import write_png
+from raytracer import FPSCamera, PathTracer, Scene
+from raytracer.utils import procgen
+from raytracer.utils.compile_cache import enable_compile_cache
+from raytracer.utils.image import write_png
 
 
 def _load_scene(args) -> Scene:
@@ -87,18 +81,19 @@ def main(argv=None) -> int:
     ap.add_argument("--orbit", action="store_true", help="orbit camera path")
     ap.add_argument("--builder", default="auto",
                     choices=["auto", "lbvh", "ploc", "sah"],
-                    help="auto = fastest available (SAH K=32 clusters on "
-                         "TPU); lbvh = reference-parity tree (enables the "
+                    help="auto = fastest available (SAH clusters on the "
+                         "GPU); lbvh = reference-parity tree (enables the "
                          "BVH2.bin artifact dump)")
     ap.add_argument("--leaf", type=int, default=None,
                     help="triangles per BVH leaf (default: auto per backend)")
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
     scene = _load_scene(args)
     print(f"[app] scene: {scene.num_triangles} triangles")
 
-    from raytracer_tpu.utils.config import CameraConfig, RenderConfig
-    from raytracer_tpu.utils.profiling import FrameStats
+    from raytracer.utils.config import CameraConfig, RenderConfig
+    from raytracer.utils.profiling import FrameStats
 
     config = RenderConfig(
         width=args.width, height=args.height,

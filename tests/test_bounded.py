@@ -2,11 +2,11 @@
 
 The bounded pipeline (coarse depth probe → bounded main pass → repair of
 no-hit-under-finite-bound lanes) must produce the SAME image as the
-unbounded kernel, by construction: a hit found under bound B is the true
-nearest, and every possibly-wrong lane is re-traced unbounded. These tests
-check that claim end-to-end in interpret mode, including a run where the
-bounds are deliberately sabotaged so the repair pass has to do the work —
-the analog of the reference's oracle-vs-kernel discipline
+unbounded trace, by construction: a hit found under bound B is the true
+nearest, and every possibly-wrong ray is re-traced unbounded. These tests
+check that claim end-to-end through ops.trace.trace, including a run where
+the bounds are deliberately sabotaged so the repair pass has to do the
+work — the analog of the reference's oracle-vs-kernel discipline
 (/root/reference/tests/test.py:149-230).
 """
 
@@ -14,20 +14,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer_tpu.models.scene import Scene
-from raytracer_tpu.ops.cluster import build_lbvh2_clustered, build_sah2_clustered
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.pallas.traverse import make_qnodes, trace_tiles_pallas
-from raytracer_tpu.ops.trace import make_wide_bvh
-from raytracer_tpu.render import trace_tiles_bounded
-from raytracer_tpu.utils import procgen
+from raytracer.models.scene import Scene
+from raytracer.ops.cluster import (build_lbvh2_clustered, build_sah2_clustered,
+                                   records_pipeline)
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh
+from raytracer.render import trace_frame, trace_tiles_bounded
+from raytracer.utils import procgen
 
 CAM_POS = np.array([0.0, 0.0, 2.5], np.float32)
 CAM_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
 
 
-def _scene_qnodes(leaf_k=1, sah=False):
+def _scene_records(leaf_k=1, sah=False):
     tris_np = procgen.make_icosphere(2)
     sc = Scene().set_triangles(tris_np)
     sc._normalize_enabled, sc._normalize_mode = True, "cube"
@@ -36,17 +36,11 @@ def _scene_qnodes(leaf_k=1, sah=False):
     if leaf_k > 1:
         if sah:
             cs, h = build_sah2_clustered(tris, leaf_size=leaf_k)
-            bvh4 = collapse_lbvh2_to_bvh4(cs.bvh2, sweeps=h + 2)
-        else:
-            cs = build_lbvh2_clustered(tris, leaf_size=leaf_k)
-            bvh4 = collapse_lbvh2_to_bvh4(cs.bvh2)
-        wide = make_wide_bvh(bvh4)
-        qn = make_qnodes(wide, cs.tris_sorted, tri_ids=cs.tri_order,
-                         leaf_size=leaf_k)
-    else:
-        wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
-        qn = make_qnodes(wide, tris)
-    return tris, qn
+            return tris, records_pipeline(cs, height=h)
+        return tris, records_pipeline(
+            build_lbvh2_clustered(tris, leaf_size=leaf_k))
+    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
+    return tris, pack_bvh(wide, tris)
 
 
 def _assert_same_image(ref, got):
@@ -60,11 +54,11 @@ def _assert_same_image(ref, got):
 
 @pytest.mark.full
 def test_bounded_equals_unbounded():
-    tris, qn = _scene_qnodes()
+    tris, qn = _scene_records()
     w, h = 96, 64
-    ref = trace_tiles_pallas(qn, CAM_POS, CAM_QUAT, w, h, interpret=True)
+    ref = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h)
     t, nx, ny, nz, tri, nrep = trace_tiles_bounded(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, repair_cap=1024
+        *qn, CAM_POS, CAM_QUAT, w, h, repair_cap=1024
     )
     _assert_same_image(ref, (t, tri))
 
@@ -77,13 +71,13 @@ def test_bounded_repair_fixes_sabotaged_bounds():
     Finite bounds only exist on tiles whose full 3x3 tile neighborhood hit
     at coarse resolution, so the frame must be big enough to have interior
     tiles (5x5 grid) and the camera close enough that every ray hits."""
-    tris, qn = _scene_qnodes()
+    tris, qn = _scene_records()
     w, h = 160, 160
     pos = np.array([0.0, 0.0, 1.2], np.float32)  # sphere fills the frame
-    ref = trace_tiles_pallas(qn, pos, CAM_QUAT, w, h, interpret=True)
+    ref = trace_frame(*qn, pos, CAM_QUAT, w, h)
     assert (np.asarray(ref[4]) >= 0).all(), "setup: every ray must hit"
     t, nx, ny, nz, tri, nrep = trace_tiles_bounded(
-        qn, pos, CAM_QUAT, w, h, interpret=True, repair_cap=w * h,
+        *qn, pos, CAM_QUAT, w, h, repair_cap=w * h,
         _bound_scale=0.5, _bound_pad=0.0,
     )
     assert int(nrep) > 0, "sabotaged bounds should force repairs"
@@ -96,12 +90,12 @@ def test_bounded_repair_loops_past_cap():
     """More repairs needed than repair_cap: the batched repair loop must
     still restore the exact image (ADVICE r2: a single truncated batch
     left silent hole pixels)."""
-    tris, qn = _scene_qnodes()
+    tris, qn = _scene_records()
     w, h = 160, 160
     pos = np.array([0.0, 0.0, 1.2], np.float32)
-    ref = trace_tiles_pallas(qn, pos, CAM_QUAT, w, h, interpret=True)
+    ref = trace_frame(*qn, pos, CAM_QUAT, w, h)
     t, nx, ny, nz, tri, nrep = trace_tiles_bounded(
-        qn, pos, CAM_QUAT, w, h, interpret=True, repair_cap=64,
+        *qn, pos, CAM_QUAT, w, h, repair_cap=64,
         _bound_scale=0.5, _bound_pad=0.0,
     )
     assert int(nrep) > 64, "setup: must exceed one repair batch"
@@ -111,20 +105,18 @@ def test_bounded_repair_loops_past_cap():
 @pytest.mark.parametrize("k", [8])
 @pytest.mark.full
 def test_bounded_packed_leaves(k):
-    tris, qn = _scene_qnodes(leaf_k=k)
+    tris, qn = _scene_records(leaf_k=k)
     w, h = 96, 64
-    ref = trace_tiles_pallas(qn, CAM_POS, CAM_QUAT, w, h, interpret=True,
-                             leaf_k=k)
+    ref = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h)
     t, nx, ny, nz, tri, nrep = trace_tiles_bounded(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, leaf_k=k,
-        repair_cap=1024,
+        *qn, CAM_POS, CAM_QUAT, w, h, repair_cap=1024,
     )
     _assert_same_image(ref, (t, tri))
 
 
 _has_sah_clustered = False
 try:
-    from raytracer_tpu.native import bvhtool as _bvhtool
+    from raytracer.native import bvhtool as _bvhtool
 
     _has_sah_clustered = _bvhtool.available() and getattr(
         _bvhtool._lib, "bvh_build_sah_clustered", None
@@ -137,9 +129,9 @@ except Exception:
                     reason="libbvhtool.so with bvh_build_sah_clustered not built")
 @pytest.mark.full
 def test_sah_clustered_pipeline_parity():
-    """SAH-snapped clusters (native builder) through the Pallas kernel match
+    """SAH-snapped clusters (native builder) through the trace entry match
     the brute-force oracle exactly — same contract as the Morton clusters."""
-    from raytracer_tpu.render import render_ldr_brute
+    from raytracer.render import render_ldr_brute
 
     tris_np = procgen.make_icosphere(2)[:315]  # force a partial tail cluster
     sc = Scene().set_triangles(tris_np)
@@ -155,12 +147,9 @@ def test_sah_clustered_pipeline_parity():
     leaf = (meta >> 31) != 0
     assert sorted((meta[leaf] & 0x7FFFFFFF).tolist()) == list(range(-(-n // k)))
 
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(cs.bvh2, sweeps=height + 2))
-    qn = make_qnodes(wide, cs.tris_sorted, tri_ids=cs.tri_order, leaf_size=k)
+    qn = records_pipeline(cs, height=height)
     w, h = 96, 64
-    t, nx, ny, nz, tri = trace_tiles_pallas(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, leaf_k=k
-    )[:5]
+    t, nx, ny, nz, tri = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h)
     _, rt, rtri = render_ldr_brute(tris, CAM_POS, CAM_QUAT, w, h)
     t, tri, rt, rtri = map(np.asarray, (t, tri, rt, rtri))
     assert (tri == rtri).all()
@@ -173,9 +162,8 @@ def test_sah_clustered_pipeline_parity():
 @pytest.mark.full
 def test_sah_clustered_k32_parity():
     """The SHIPPED production configuration — SAH clusters at K=32
-    (fast_build_options / bench default) — pinned off-TPU in interpret
-    mode (verdict r2 #8: K=32 was previously exercised only on TPU)."""
-    from raytracer_tpu.render import render_ldr_brute
+    of earlier builds — pinned on the CPU through the reference."""
+    from raytracer.render import render_ldr_brute
 
     tris_np = procgen.make_icosphere(2)[:500]  # partial tail cluster at K=32
     sc = Scene().set_triangles(tris_np)
@@ -184,12 +172,9 @@ def test_sah_clustered_k32_parity():
     tris = jnp.asarray(sc.triangles)
     k = 32
     cs, height = build_sah2_clustered(tris, leaf_size=k)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(cs.bvh2, sweeps=height + 2))
-    qn = make_qnodes(wide, cs.tris_sorted, tri_ids=cs.tri_order, leaf_size=k)
+    qn = records_pipeline(cs, height=height)
     w, h = 64, 64
-    t, nx, ny, nz, tri = trace_tiles_pallas(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, leaf_k=k
-    )[:5]
+    t, nx, ny, nz, tri = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h)
     _, rt, rtri = render_ldr_brute(tris, CAM_POS, CAM_QUAT, w, h)
     t, tri, rt, rtri = map(np.asarray, (t, tri, rt, rtri))
     assert (tri == rtri).all()
@@ -203,8 +188,8 @@ def test_clustered_refit_deform_parity(sah):
     assignment kept, bounds recomputed), and re-trace: the image must match
     the brute-force oracle on the deformed triangles exactly (verdict r2 #3
     — the dynamic-scene path for clustered trees)."""
-    from raytracer_tpu.ops.cluster import refit_lbvh2_clustered
-    from raytracer_tpu.render import render_ldr_brute
+    from raytracer.ops.cluster import refit_lbvh2_clustered
+    from raytracer.render import render_ldr_brute
 
     if sah and not _has_sah_clustered:
         pytest.skip("libbvhtool.so with bvh_build_sah_clustered not built")
@@ -237,12 +222,10 @@ def test_clustered_refit_deform_parity(sah):
 
     bvh4 = (collapse_lbvh2_to_bvh4(cs2.bvh2, sweeps=sweeps) if sah
             else collapse_lbvh2_to_bvh4(cs2.bvh2))
-    wide = make_wide_bvh(bvh4)
-    qn = make_qnodes(wide, cs2.tris_sorted, tri_ids=cs2.tri_order, leaf_size=k)
+    qn = pack_bvh(make_wide_bvh(bvh4), cs2.tris_sorted,
+                  tri_ids=cs2.tri_order, leaf_size=k)
     w, h = 96, 64
-    t_, nx, ny, nz, tri = trace_tiles_pallas(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, leaf_k=k
-    )[:5]
+    t_, nx, ny, nz, tri = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h)
     _, rt, rtri = render_ldr_brute(deformed, CAM_POS, CAM_QUAT, w, h)
     t_, tri, rt, rtri = map(np.asarray, (t_, tri, rt, rtri))
     assert (tri == rtri).all(), f"{(tri != rtri).sum()} mismatches after refit"
@@ -256,19 +239,19 @@ def test_temporal_bounds_exact_across_samples():
     exactly the plain jittered trace for every successive seed — the
     progressive accumulation is then identical with and without the
     accelerator."""
-    from raytracer_tpu.render import trace_tiles_temporal
+    from raytracer.render import trace_tiles_temporal
 
-    tris, qn = _scene_qnodes()
+    tris, qn = _scene_records()
     w, h = 96, 64
-    prev = trace_tiles_pallas(qn, CAM_POS, CAM_QUAT, w, h, interpret=True,
-                              jitter=True, jitter_seed=1)
+    prev = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h,
+                       jitter=True, jitter_seed=1)
     pt, ptri = prev[0], prev[4]
     for seed in (2, 3):
-        ref = trace_tiles_pallas(qn, CAM_POS, CAM_QUAT, w, h, interpret=True,
-                                 jitter=True, jitter_seed=seed)
+        ref = trace_frame(*qn, CAM_POS, CAM_QUAT, w, h,
+                          jitter=True, jitter_seed=seed)
         t, nx, ny, nz, tri, nrep = trace_tiles_temporal(
-            qn, CAM_POS, CAM_QUAT, w, h, pt, ptri, seed,
-            interpret=True, repair_cap=1024,
+            *qn, CAM_POS, CAM_QUAT, w, h, pt, ptri, seed,
+            repair_cap=1024,
         )
         rtri = np.asarray(ref[4])
         assert (np.asarray(tri) == rtri).all(), \

@@ -1,34 +1,34 @@
-"""BVH8 path: 8-wide greedy collapse + width-generalized supernode kernel.
+"""BVH8 path: 8-wide greedy collapse + width-generalized traversal.
 
-Our TPU-native extension beyond the reference's fixed 4-wide collapse
-(PathTracer.js:506-667): halve record visits on the scalar-issue-bound
-consume loop by doubling the child slots per record. Correctness is pinned
-the same way as the 4-wide path — structural invariants vs the BVH2, then
-exact tri-id parity vs the brute-force oracle through both kernels.
+An extension beyond the reference's fixed 4-wide collapse
+(PathTracer.js:506-667): half the node visits per ray for twice the slab
+tests per visit. Correctness is pinned the same way as the 4-wide path —
+structural invariants vs the BVH2, then exact tri-id parity vs the
+brute-force oracle through the trace entry.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer_tpu.models.scene import Scene
-from raytracer_tpu.ops.camera import generate_rays
-from raytracer_tpu.ops.collapse import (
+from raytracer.models.scene import Scene
+from raytracer.ops.camera import generate_rays
+from raytracer.ops.collapse import (
     INVALID,
     LEAF_FLAG,
     _decode_bounds,
     collapse_lbvh2_to_bvh8,
 )
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.pallas.traverse import (
-    infer_rec_width,
-    make_qnodes,
-    rec_layout,
-    trace_rays_pallas,
-    trace_tiles_pallas,
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.trace import (
+    make_wide_bvh,
+    pack_bvh,
+    trace,
+    trace_rays_brute,
+    unpack_nodes,
 )
-from raytracer_tpu.ops.trace import make_wide_bvh, trace_rays_brute
-from raytracer_tpu.utils import procgen
+from raytracer.render import trace_frame
+from raytracer.utils import procgen
 
 CAM_POS = jnp.array([0.15, -0.1, 2.5], jnp.float32)
 CAM_QUAT = jnp.array([0.0, 0.1, 0.0, 0.9949874], jnp.float32)
@@ -45,15 +45,27 @@ def _scene_tris(n_sub=2, trim=0):
 
 
 def test_rec_layout_width8_roundtrip():
+    """Node rows are 8·w words for either width and any leaf size, and
+    unpack back to the packed boxes and per-slot counts."""
+    from raytracer.ops.cluster import build_lbvh2_clustered, records_pipeline
+
+    tris = _scene_tris(1)
     for k in (1, 2, 8, 32):
-        vb4, ib4, r4 = rec_layout(k, 4)
-        vb8, ib8, r8 = rec_layout(k, 8)
-        assert (vb4, ib4) == (32, 32 + 48 * k)   # unchanged 4-wide layout
-        assert (vb8, ib8) == (64, 64 + 96 * k)
-        assert infer_rec_width(k, r4) == 4
-        assert infer_rec_width(k, r8) == 8
+        cs = build_lbvh2_clustered(tris, leaf_size=k)
+        for width in (4, 8):
+            nodes, trec = records_pipeline(cs, width=width)
+            assert nodes.shape[1] == 8 * width
+            cmn, cmx, ref, cnt = (np.asarray(a) for a in unpack_nodes(nodes))
+            assert cmn.shape == cmx.shape == (nodes.shape[0], width, 3)
+            assert cnt.max() <= k and cnt.min() >= -1
+            # every triangle row is covered by exactly one leaf slot
+            rows = np.concatenate([np.arange(r, r + c) for r, c in
+                                   zip(ref[cnt > 0], cnt[cnt > 0])])
+            assert sorted(rows.tolist()) == list(range(tris.shape[0]))
+            assert trec.rec.shape == (tris.shape[0], 12)
     with pytest.raises(ValueError):
-        infer_rec_width(1, 999)
+        pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh8(build_lbvh2(tris))),
+                 tris, leaf_size=65)
 
 
 def test_collapse8_structure():
@@ -101,29 +113,23 @@ def test_collapse8_structure():
 
 @pytest.mark.parametrize("k", [1, pytest.param(8, marks=pytest.mark.full)])
 def test_bvh8_kernel_parity_vs_brute(k):
-    """Exact tri-id parity of the 8-wide record path through BOTH kernels
-    (tile + ray-buffer), K=1 and packed K=8 leaves. The quick tier runs
-    the K=1 case on a small scene/frame (interpret-mode while_loops are
-    minutes-per-megapixel on CPU); the full tier covers packed leaves at
-    the standard parity size."""
+    """Exact tri-id parity of the 8-wide record path — primary frames and
+    arbitrary ray buffers, closest-hit and any-hit — K=1 and packed K=8
+    leaves."""
     if k == 1:
         tris = _scene_tris(1)
-        wide = make_wide_bvh(collapse_lbvh2_to_bvh8(build_lbvh2(tris)))
-        qn = make_qnodes(wide, tris)
+        nodes, trec = pack_bvh(
+            make_wide_bvh(collapse_lbvh2_to_bvh8(build_lbvh2(tris))), tris)
     else:
-        from raytracer_tpu.ops.cluster import build_lbvh2_clustered
+        from raytracer.ops.cluster import build_lbvh2_clustered, records_pipeline
 
-        tris = _scene_tris(2, trim=3)    # tail cluster masked
-        cs = build_lbvh2_clustered(tris, leaf_size=k)
-        wide = make_wide_bvh(collapse_lbvh2_to_bvh8(cs.bvh2))
-        qn = make_qnodes(wide, cs.tris_sorted, tri_ids=cs.tri_order,
-                         leaf_size=k)
-    assert qn.shape[1] * qn.shape[2] == rec_layout(k, 8)[2]
+        tris = _scene_tris(2, trim=3)    # short tail cluster
+        nodes, trec = records_pipeline(
+            build_lbvh2_clustered(tris, leaf_size=k), width=8)
+    assert nodes.shape[1] == 64
 
     w, h = (64, 32) if k == 1 else (96, 64)
-    t, nx, ny, nz, tri = trace_tiles_pallas(
-        qn, CAM_POS, CAM_QUAT, w, h, interpret=True, leaf_k=k
-    )
+    t, nx, ny, nz, tri = trace_frame(nodes, trec, CAM_POS, CAM_QUAT, w, h)
     o, d = generate_rays(w, h, CAM_POS, CAM_QUAT)
     bt, btri = trace_rays_brute(tris, o.reshape(-1, 3), d.reshape(-1, 3))
     bt = np.asarray(bt).reshape(h, w)
@@ -132,11 +138,10 @@ def test_bvh8_kernel_parity_vs_brute(k):
     hit = btri >= 0
     assert np.allclose(np.asarray(t)[hit], bt[hit], rtol=1e-5)
 
-    # ray-buffer kernel (bounce waves / shadow rays), incl. any-hit
+    # arbitrary ray buffers (bounce waves / shadow rays), incl. any-hit
     ob, db = o.reshape(-1, 3)[:512], d.reshape(-1, 3)[:512]
-    rt, _, _, _, rtri = trace_rays_pallas(qn, ob, db, interpret=True, leaf_k=k)
+    rt, _, _, _, rtri = trace(nodes, trec, ob, db)
     rbt, rbtri = trace_rays_brute(tris, ob, db)
     assert (np.asarray(rtri) == np.asarray(rbtri)).all()
-    _, _, _, _, otri = trace_rays_pallas(qn, ob, db, interpret=True,
-                                         leaf_k=k, any_hit=True)
+    _, _, _, _, otri = trace(nodes, trec, ob, db, any_hit=True)
     assert ((np.asarray(otri) >= 0) == (np.asarray(rbtri) >= 0)).all()

@@ -4,17 +4,17 @@ promotion parity."""
 import numpy as np
 import pytest
 
-from raytracer_tpu.io import artifacts
-from raytracer_tpu.ops.collapse import (
+from raytracer.io import artifacts
+from raytracer.ops.collapse import (
     INVALID,
     LEAF_FLAG,
     collapse_lbvh2_to_bvh4,
     promote_lbvh2_to_bvh4_wide,
 )
-from raytracer_tpu.ops.lbvh import LBVH2, build_lbvh2
-from raytracer_tpu.reference.collapse_oracle import collapse_oracle, promote_wide_oracle
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.fp16 import pack_bounds_u32, unpack_bounds_u32
+from raytracer.ops.lbvh import LBVH2, build_lbvh2
+from raytracer.reference.collapse_oracle import collapse_oracle, promote_wide_oracle
+from raytracer.utils import procgen
+from raytracer.utils.fp16 import pack_bounds_u32, unpack_bounds_u32
 
 
 def _random_tris(rng, n):
@@ -152,12 +152,12 @@ def test_collapse_plan_refit_parity(rng, builder):
     replaces four per-frame fixed-point sweeps with one static gather."""
     import jax.numpy as jnp
 
-    from raytracer_tpu.ops.cluster import (
+    from raytracer.ops.cluster import (
         build_lbvh2_clustered,
         build_sah2_clustered,
         refit_lbvh2_clustered,
     )
-    from raytracer_tpu.ops.collapse import collapse_apply_refit, collapse_plan
+    from raytracer.ops.collapse import collapse_apply_refit, collapse_plan
 
     tris = _random_tris(rng, 257)
     if builder == "sah":
@@ -195,11 +195,11 @@ def test_collapse_plan_refit_parity_subnormal_bounds(rng):
     r4)."""
     import jax.numpy as jnp
 
-    from raytracer_tpu.ops.cluster import (
+    from raytracer.ops.cluster import (
         build_lbvh2_clustered,
         refit_lbvh2_clustered,
     )
-    from raytracer_tpu.ops.collapse import collapse_apply_refit, collapse_plan
+    from raytracer.ops.collapse import collapse_apply_refit, collapse_plan
 
     # every tri flat at y=0 (so internal rows carry subnormal max-y words),
     # plus sub-2^-14 x extents on a tail cluster

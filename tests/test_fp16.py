@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from raytracer_tpu.utils import fp16
+from raytracer.utils import fp16
 
 
 def _js_f32_to_f16(v: float) -> int:

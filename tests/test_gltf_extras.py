@@ -6,13 +6,13 @@ import struct
 
 import numpy as np
 
-from raytracer_tpu.models.scene import Scene
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.trace import make_wide_bvh
-from raytracer_tpu.render import render_frame_u8
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.gltf import extract_triangles, load_gltf
+from raytracer.models.scene import Scene
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh
+from raytracer.render import render_frame_u8
+from raytracer.utils import procgen
+from raytracer.utils.gltf import extract_triangles, load_gltf
 
 
 def _gltf_with_nodes(tmp_path, nodes, scene_nodes):
@@ -90,10 +90,10 @@ def test_golden_image_regression():
     the same image signature across refactors (regenerate consciously if the
     math intentionally changes)."""
     tris = procgen.make_icosphere(2)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
+    rec = pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris))), tris)
     img = np.asarray(
         render_frame_u8(
-            wide, tris,
+            *rec,
             np.array([0.1, -0.05, 3.2], np.float32),
             np.array([0.0, 0.0, 0.0, 1.0], np.float32),
             64, 64,

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from raytracer_tpu.io import artifacts
-from raytracer_tpu.ops.lbvh import INVALID, LEAF_FLAG, build_lbvh2, refit_lbvh2
-from raytracer_tpu.ops.morton import build_morton_and_sort
-from raytracer_tpu.reference.lbvh_oracle import build_lbvh2_oracle, morton_codes_py
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.fp16 import unpack_bounds_u32
+from raytracer.io import artifacts
+from raytracer.ops.lbvh import INVALID, LEAF_FLAG, build_lbvh2, refit_lbvh2
+from raytracer.ops.morton import build_morton_and_sort
+from raytracer.reference.lbvh_oracle import build_lbvh2_oracle, morton_codes_py
+from raytracer.utils import procgen
+from raytracer.utils.fp16 import unpack_bounds_u32
 
 
 def _random_tris(rng, n):

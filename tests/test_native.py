@@ -6,18 +6,18 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from raytracer_tpu.io import artifacts
-from raytracer_tpu.native import bvhtool
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.reference.collapse_oracle import collapse_oracle, promote_wide_oracle
-from raytracer_tpu.utils import procgen
+from raytracer.io import artifacts
+from raytracer.native import bvhtool
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.reference.collapse_oracle import collapse_oracle, promote_wide_oracle
+from raytracer.utils import procgen
 
 REPO = Path(__file__).resolve().parents[1]
 CLI = REPO / "bin" / "bvh_convert"
 
 needs_native = pytest.mark.skipif(
     not bvhtool.available() or not CLI.exists(),
-    reason="native tooling not built (run raytracer_tpu/native/build.sh)",
+    reason="native tooling not built (run raytracer/native/build.sh)",
 )
 
 

@@ -1,10 +1,11 @@
-"""MXU bucket partition (ops/partition.py) — the wave-compaction sort."""
+"""Matrix-product bucket partition (ops/partition.py) — the wave-compaction
+sort."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer_tpu.ops.partition import bucket_partition_perm, bucket_positions
+from raytracer.ops.partition import bucket_partition_perm, bucket_positions
 
 
 @pytest.mark.parametrize("r,b", [(1000, 2), (4096, 16), (100000, 256),

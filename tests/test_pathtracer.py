@@ -1,13 +1,13 @@
-"""PathTracer orchestrator + FPSCamera tests (XLA fallback path on CPU)."""
+"""PathTracer orchestrator + FPSCamera tests (the XLA reference on CPU)."""
 
 import math
 
 import numpy as np
 
-from raytracer_tpu import FPSCamera, PathTracer, Scene
-from raytracer_tpu.io import artifacts
-from raytracer_tpu.reference import cpu_tracer
-from raytracer_tpu.utils import procgen
+from raytracer import FPSCamera, PathTracer, Scene
+from raytracer.io import artifacts
+from raytracer.reference import cpu_tracer
+from raytracer.utils import procgen
 
 
 def test_default_mesh_render():
@@ -134,7 +134,7 @@ def test_camera_diagonal_normalized():
 
 def test_widener_variants_render_identically():
     import numpy as np
-    from raytracer_tpu.utils import procgen
+    from raytracer.utils import procgen
 
     tris = procgen.make_icosphere(2)
     imgs = []
@@ -148,8 +148,8 @@ def test_widener_variants_render_identically():
 
 def test_ploc_builder_renders_identically_to_brute():
     import numpy as np
-    from raytracer_tpu.utils import procgen
-    from raytracer_tpu.reference import cpu_tracer
+    from raytracer.utils import procgen
+    from raytracer.reference import cpu_tracer
 
     tris = procgen.make_icosphere(2)
     pt = PathTracer(width=48, height=48, builder="ploc")
@@ -163,10 +163,10 @@ def test_ploc_builder_renders_identically_to_brute():
 
 
 def test_fast_build_options_cpu():
-    """On the CPU test backend the fast configuration must be the
-    reference-parity single-triangle LBVH (packed clusters need the Pallas
-    kernel, i.e. a TPU)."""
-    from raytracer_tpu.pathtracer import fast_build_options
+    """On the CPU test backend the fast configuration is the
+    reference-parity single-triangle LBVH (the K sweep that picks the
+    GPU's cluster size is measured on the card)."""
+    from raytracer.pathtracer import fast_build_options
 
     builder, leaf = fast_build_options()
     assert (builder, leaf) == ("lbvh", 1)
@@ -175,7 +175,7 @@ def test_fast_build_options_cpu():
 def test_from_config_and_phase_timer():
     """RenderConfig drives construction (SURVEY.md §5.6) and build timing is
     produced by utils.profiling.PhaseTimer (§5.1) — both wired, not padded."""
-    from raytracer_tpu.utils.config import CameraConfig, RenderConfig
+    from raytracer.utils.config import CameraConfig, RenderConfig
 
     cfg = RenderConfig(width=32, height=16, fov_degrees=60.0,
                        camera=CameraConfig(position=(0.0, 0.0, 2.0)))

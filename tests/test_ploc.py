@@ -4,14 +4,14 @@ better-or-equal traversal cost."""
 import numpy as np
 import pytest
 
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.lbvh import LEAF_FLAG, build_lbvh2
-from raytracer_tpu.ops.ploc import build_ploc2
-from raytracer_tpu.ops.trace import make_wide_bvh
-from raytracer_tpu.reference import cpu_tracer
-from raytracer_tpu.render import render_ldr, render_ldr_brute
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.fp16 import unpack_bounds_u32
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
+from raytracer.ops.lbvh import LEAF_FLAG, build_lbvh2
+from raytracer.ops.ploc import build_ploc2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh
+from raytracer.reference import cpu_tracer
+from raytracer.render import render_ldr, render_ldr_brute
+from raytracer.utils import procgen
+from raytracer.utils.fp16 import unpack_bounds_u32
 
 CAM_POS = np.array([0.0, 0.0, 3.5], np.float32)
 CAM_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
@@ -55,8 +55,8 @@ def test_ploc_invariants_icosphere():
 
 def test_ploc_renders_identically_to_brute():
     tris = procgen.make_icosphere(2)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_ploc2(tris)))
-    _, t_p, tri_p = render_ldr(wide, tris, CAM_POS, CAM_QUAT, 64, 48)
+    rec = pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh4(build_ploc2(tris))), tris)
+    _, t_p, tri_p = render_ldr(*rec, CAM_POS, CAM_QUAT, 64, 48)
     _, t_b, tri_b = render_ldr_brute(tris, CAM_POS, CAM_QUAT, 64, 48)
     np.testing.assert_array_equal(np.asarray(t_p), np.asarray(t_b))
 

@@ -6,15 +6,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracer_tpu import PathTracer, Scene
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.trace import make_wide_bvh
-from raytracer_tpu.render_pt import accumulate, pt_sample_frame
-from raytracer_tpu.utils import procgen
+from raytracer import PathTracer, Scene
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh
+from raytracer.render_pt import accumulate, pt_sample_frame
+from raytracer.utils import procgen
 
 CAM_POS = np.array([0.0, 1.0, 3.0], np.float32)
 CAM_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def _records(tris):
+    tris = jnp.asarray(tris)
+    return pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris))),
+                    tris)
 
 
 def test_direct_matches_primary_shade_on_open_plane():
@@ -22,15 +28,14 @@ def test_direct_matches_primary_shade_on_open_plane():
     shipped Lambert shade ρ·(0.15 + n·l) plus bounded GI (here: none —
     nothing else to bounce off, sky accounts for the 0.15)."""
     tris = procgen.make_quad(50.0, y=0.0)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
+    rec = _records(tris)
     w = h = 24
 
     acc = jnp.zeros((h, w, 3), jnp.float32)
     n_samples = 48
     for i in range(n_samples):
         s = pt_sample_frame(
-            wide, jnp.asarray(tris), CAM_POS, CAM_QUAT,
-            jax.random.key(i), w, h, bounces=2, brute=True,
+            *rec, CAM_POS, CAM_QUAT, jax.random.key(i), w, h, bounces=2,
         )
         acc = accumulate(acc, s, jnp.int32(i))
     acc = np.asarray(acc)
@@ -47,10 +52,9 @@ def test_direct_matches_primary_shade_on_open_plane():
 @pytest.mark.full
 def test_radiance_finite_and_nonnegative():
     tris = procgen.make_cornell_box()
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
     s = pt_sample_frame(
-        wide, jnp.asarray(tris), CAM_POS, CAM_QUAT,
-        jax.random.key(0), 16, 16, bounces=3,
+        *_records(tris), CAM_POS, CAM_QUAT, jax.random.key(0), 16, 16,
+        bounces=3,
     )
     s = np.asarray(s)
     assert np.isfinite(s).all() and (s >= 0).all()
@@ -59,10 +63,8 @@ def test_radiance_finite_and_nonnegative():
 @pytest.mark.full
 def test_background_pixels_show_miss_color():
     tris = procgen.make_cube(0.3)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
     s = pt_sample_frame(
-        wide, jnp.asarray(tris),
-        np.array([0, 0, 5], np.float32), CAM_QUAT,
+        *_records(tris), np.array([0, 0, 5], np.float32), CAM_QUAT,
         jax.random.key(0), 16, 16, bounces=2,
     )
     s = np.asarray(s)
@@ -96,15 +98,15 @@ def test_gi_adds_energy_in_concave_scene():
     """Inside the Cornell box, bounces>1 must add (bounded) energy vs
     direct-only."""
     tris = procgen.make_cornell_box()
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
+    rec = _records(tris)
     pos = np.array([0.0, 0.0, 2.2], np.float32)
 
     def mean_radiance(bounces, n=8):
         acc = jnp.zeros((12, 12, 3), jnp.float32)
         for i in range(n):
             s = pt_sample_frame(
-                wide, jnp.asarray(tris), pos, CAM_QUAT,
-                jax.random.key(100 + i), 12, 12, bounces=bounces,
+                *rec, pos, CAM_QUAT, jax.random.key(100 + i), 12, 12,
+                bounces=bounces,
             )
             acc = accumulate(acc, s, jnp.int32(i))
         return float(np.asarray(acc).mean())
@@ -116,8 +118,7 @@ def test_gi_adds_energy_in_concave_scene():
 
 
 def test_progressive_aa_mode_bounces0():
-    """bounces=0 → jittered-primary AA accumulation (Pallas path on TPU,
-    XLA fallback here)."""
+    """bounces=0 → jittered-primary AA accumulation."""
     pt = PathTracer(width=16, height=16)
     pt.set_scene(Scene().set_triangles(procgen.make_cornell_box()))
     a1 = np.asarray(pt.render_progressive(bounces=0))

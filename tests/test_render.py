@@ -4,20 +4,22 @@ semantics, traversal statistics."""
 import numpy as np
 import pytest
 
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4, promote_lbvh2_to_bvh4_wide
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.shade import present_frame, quantize_rgba8
-from raytracer_tpu.ops.trace import make_wide_bvh, trace_rays, trace_rays_brute
-from raytracer_tpu.reference import cpu_tracer
-from raytracer_tpu.render import render_ldr, render_ldr_brute, render_frame_u8
-from raytracer_tpu.utils import procgen
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4, promote_lbvh2_to_bvh4_wide
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.shade import present_frame, quantize_rgba8
+from raytracer.ops.trace import make_wide_bvh, pack_bvh, trace, trace_rays_brute
+from raytracer.reference import cpu_tracer
+from raytracer.render import (render_frame_u8, render_ldr, render_ldr_brute,
+                              trace_frame, trace_frames)
+from raytracer.utils import procgen
 
 CAM_POS = np.array([0.0, 0.0, 3.5], np.float32)   # PathTracer.js:67 default
 CAM_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
 
 
-def _wide(tris, widener=collapse_lbvh2_to_bvh4):
-    return make_wide_bvh(widener(build_lbvh2(tris)))
+def _records(tris, widener=collapse_lbvh2_to_bvh4):
+    """(nodes, TriRecords) of the single-triangle-leaf tree."""
+    return pack_bvh(make_wide_bvh(widener(build_lbvh2(tris))), tris)
 
 
 @pytest.mark.parametrize("mesh", ["icosphere", "cornell", "cube"])
@@ -28,7 +30,7 @@ def test_bvh_equals_brute_force(mesh):
         "cube": procgen.make_cube(),
     }[mesh]
     w, h = 96, 64
-    rgb_bvh, t_bvh, tri_bvh = render_ldr(_wide(tris), tris, CAM_POS, CAM_QUAT, w, h)
+    rgb_bvh, t_bvh, tri_bvh = render_ldr(*_records(tris), CAM_POS, CAM_QUAT, w, h)
     rgb_bf, t_bf, tri_bf = render_ldr_brute(tris, CAM_POS, CAM_QUAT, w, h)
     t_bvh, t_bf = np.asarray(t_bvh), np.asarray(t_bf)
     tri_bvh, tri_bf = np.asarray(tri_bvh), np.asarray(tri_bf)
@@ -43,15 +45,32 @@ def test_bvh_equals_brute_force(mesh):
 def test_bvh_equals_brute_force_promoted_tree():
     tris = procgen.make_icosphere(2)
     w, h = 64, 48
-    _, _, tri_a = render_ldr(_wide(tris, promote_lbvh2_to_bvh4_wide), tris, CAM_POS, CAM_QUAT, w, h)
+    _, _, tri_a = render_ldr(*_records(tris, promote_lbvh2_to_bvh4_wide), CAM_POS, CAM_QUAT, w, h)
     _, _, tri_b = render_ldr_brute(tris, CAM_POS, CAM_QUAT, w, h)
     np.testing.assert_array_equal(np.asarray(tri_a), np.asarray(tri_b))
+
+
+def test_trace_frames_equals_per_frame_trace():
+    """F cameras in one trace call give each camera's own frame, bit for
+    bit — including the pad rays of a size that is no multiple of the tile."""
+    nodes, trec = _records(procgen.make_icosphere(2))
+    w, h = 72, 40
+    poss = np.stack([CAM_POS + np.array([0.2 * i - 0.2, 0.1 * i, 0.0],
+                                        np.float32) for i in range(3)])
+    quats = np.tile(CAM_QUAT, (3, 1))
+    batch = [np.asarray(a) for a in trace_frames(nodes, trec, poss, quats, w, h)]
+    assert all(a.shape == (3, h, w) for a in batch)
+    for i in range(3):
+        one = trace_frame(nodes, trec, poss[i], quats[i], w, h)
+        for a, b in zip(batch, one):
+            np.testing.assert_array_equal(a[i], np.asarray(b))
+    assert len({int((b >= 0).sum()) for b in batch[4]}) > 1   # distinct views
 
 
 def test_xla_matches_numpy_oracle():
     tris = procgen.make_icosphere(2)
     w, h = 64, 48
-    img, t, tri = render_frame_u8(_wide(tris), tris, CAM_POS, CAM_QUAT, w, h), None, None
+    img, t, tri = render_frame_u8(*_records(tris), CAM_POS, CAM_QUAT, w, h), None, None
     want, t_np, tri_np = cpu_tracer.render_oracle(tris, CAM_POS, CAM_QUAT, w, h)
     img = np.asarray(img)
     # float math may differ by 1 ulp at silhouette pixels → allow tiny u8 diff
@@ -63,7 +82,7 @@ def test_xla_matches_numpy_oracle():
 def test_hit_rate_and_depth_sane():
     tris = procgen.make_icosphere(2)
     w, h = 64, 64
-    _, t, tri = render_ldr(_wide(tris), tris, CAM_POS, CAM_QUAT, w, h)
+    _, t, tri = render_ldr(*_records(tris), CAM_POS, CAM_QUAT, w, h)
     tri = np.asarray(tri)
     t = np.asarray(t)
     hit = tri >= 0
@@ -77,7 +96,7 @@ def test_rotated_camera():
     quat = np.array([0.0, 1.0, 0.0, 0.0], np.float32)
     pos = np.array([0.0, 0.0, -3.0], np.float32)
     w, h = 48, 48
-    _, _, tri_bvh = render_ldr(_wide(tris), tris, pos, quat, w, h)
+    _, _, tri_bvh = render_ldr(*_records(tris), pos, quat, w, h)
     _, _, tri_bf = render_ldr_brute(tris, pos, quat, w, h)
     np.testing.assert_array_equal(np.asarray(tri_bvh), np.asarray(tri_bf))
     assert (np.asarray(tri_bvh) >= 0).any()
@@ -106,7 +125,7 @@ def test_scalar_traversal_and_stats():
 def test_miss_background_and_present():
     tris = procgen.make_cube(0.5)
     w, h = 32, 32
-    img = np.asarray(render_frame_u8(_wide(tris), tris, CAM_POS, CAM_QUAT, w, h))
+    img = np.asarray(render_frame_u8(*_records(tris), CAM_POS, CAM_QUAT, w, h))
     # corners miss → miss color 0.01 → round(0.01*255)=3
     assert tuple(img[0, 0]) == (3, 3, 3, 255)
     shown = np.asarray(present_frame(img))
@@ -125,18 +144,16 @@ def test_quantize_matches_wgsl_rounding():
 
 
 def test_raybuf_kernel_matches_brute_on_scattered_rays(rng):
-    """The Pallas ray-buffer kernel (bounce/shadow waves) in interpret mode
-    vs brute force on rays with arbitrary per-lane origins."""
+    """The trace entry on arbitrary per-ray origins and directions (bounce /
+    shadow waves) vs brute force."""
     import jax
 
-    from raytracer_tpu.ops.pallas.traverse import make_qnodes, trace_rays_pallas
-
     tris = procgen.make_icosphere(2)
-    qn = make_qnodes(_wide(tris), jax.numpy.asarray(tris))
+    nodes, trec = _records(tris)
     o = rng.uniform(-2, 2, (2048, 3)).astype(np.float32)
     d = rng.normal(size=(2048, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t, nx, ny, nz, tri = trace_rays_pallas(qn, o, d, interpret=True)
+    t, nx, ny, nz, tri = trace(nodes, trec, o, d)
     t_bf, tri_bf = trace_rays_brute(jax.numpy.asarray(tris), o, d)
     t, tri, t_bf, tri_bf = map(np.asarray, (t, tri, t_bf, tri_bf))
     np.testing.assert_array_equal(tri >= 0, tri_bf >= 0)

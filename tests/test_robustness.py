@@ -3,12 +3,12 @@ checkpoint resume (SURVEY.md §5.2-5.4 equivalents)."""
 
 import numpy as np
 
-from raytracer_tpu import PathTracer, Scene
-from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.lbvh import build_lbvh2
-from raytracer_tpu.ops.trace import make_wide_bvh
-from raytracer_tpu.render import render_ldr
-from raytracer_tpu.utils import procgen
+from raytracer import PathTracer, Scene
+from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
+from raytracer.ops.lbvh import build_lbvh2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh
+from raytracer.render import render_ldr
+from raytracer.utils import procgen
 
 CAM_POS = np.array([0.0, 0.0, 3.5], np.float32)
 CAM_QUAT = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
@@ -36,8 +36,8 @@ def test_degenerate_triangles_dont_crash_or_hit():
     degen[2, :, 0] = [0.0, 1.0, 2.0]  # collinear
     tris = np.concatenate([good, degen]).astype(np.float32)
 
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
-    rgb, t, tri = render_ldr(wide, tris, CAM_POS, CAM_QUAT, 32, 32)
+    rec = pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris))), tris)
+    rgb, t, tri = render_ldr(*rec, CAM_POS, CAM_QUAT, 32, 32)
     tri = np.asarray(tri)
     assert set(np.unique(tri)).issubset({-1, 0, 1})  # only the quad's 2 tris
     assert np.isfinite(np.asarray(rgb)).all()
@@ -72,7 +72,7 @@ def test_refit_after_checkpoint_load_rebuilds_plan(tmp_path):
     DIFFERENT scene with the same triangle count must not reuse the previous
     scene's plan in refit_bvh (it would pass the same-count fallback guard
     and silently corrupt the BVH4 — ADVICE r4)."""
-    from raytracer_tpu.ops.collapse import collapse_lbvh2_to_bvh4
+    from raytracer.ops.collapse import collapse_lbvh2_to_bvh4
 
     tris_a = procgen.make_icosphere(2)
     rng = np.random.default_rng(7)
@@ -104,6 +104,6 @@ def test_huge_coordinates_survive_fp16_packing():
     tris = np.concatenate(
         [procgen.make_quad(2.0, y=-0.5), procgen.make_quad(2.0, y=-1e8)]
     ).astype(np.float32)
-    wide = make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris)))
-    rgb, t, tri = render_ldr(wide, tris, CAM_POS, CAM_QUAT, 16, 16)
+    rec = pack_bvh(make_wide_bvh(collapse_lbvh2_to_bvh4(build_lbvh2(tris))), tris)
+    rgb, t, tri = render_ldr(*rec, CAM_POS, CAM_QUAT, 16, 16)
     assert np.isfinite(np.asarray(rgb)).all()

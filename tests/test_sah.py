@@ -1,4 +1,4 @@
-"""Native binned-SAH quality builder (raytracer_tpu/native/sah_build.cpp).
+"""Native binned-SAH quality builder (raytracer/native/sah_build.cpp).
 
 The beyond-reference quality option (reference is "BVH-only, no SAH",
 README.md:79). Checks the LBVH2-ABI contract, structural invariants,
@@ -10,12 +10,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer_tpu.native import bvhtool
-from raytracer_tpu.ops.collapse import bvh2_as_bvh4, collapse_lbvh2_to_bvh4
-from raytracer_tpu.ops.camera import generate_rays
-from raytracer_tpu.ops.lbvh import LEAF_FLAG, build_sah2
-from raytracer_tpu.ops.trace import make_wide_bvh, trace_rays, trace_rays_brute
-from raytracer_tpu.utils import procgen
+from raytracer.native import bvhtool
+from raytracer.ops.collapse import bvh2_as_bvh4, collapse_lbvh2_to_bvh4
+from raytracer.ops.camera import generate_rays
+from raytracer.ops.lbvh import LEAF_FLAG, build_sah2
+from raytracer.ops.trace import make_wide_bvh, pack_bvh, trace, trace_rays_brute
+from raytracer.utils import procgen
 
 pytestmark = pytest.mark.skipif(
     not bvhtool.available() or getattr(bvhtool._lib, "bvh_build_sah", None) is None,
@@ -62,7 +62,7 @@ def test_bounds_conservative_and_finite():
     tris = (rng.randn(1000, 3, 3) * scales).astype(np.float32)
     bvh, _ = build_sah2(tris)
 
-    from raytracer_tpu.ops import fp16_jax as f16
+    from raytracer.ops import fp16_jax as f16
 
     mn, mx = map(np.asarray, f16.unpack_bounds(bvh.bounds_u32))
     assert np.isfinite(mn).all() and np.isfinite(mx).all()
@@ -88,16 +88,17 @@ def test_traversal_parity_direct_and_collapsed():
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     bt, btri = trace_rays_brute(tris, o, d)
 
-    t1, tri1 = trace_rays(make_wide_bvh(bvh2_as_bvh4(bvh)), tris, o, d)
+    t1, _, _, _, tri1 = trace(
+        *pack_bvh(make_wide_bvh(bvh2_as_bvh4(bvh)), tris), o, d)
     assert bool(jnp.all(tri1 == btri))
 
     bvh4 = collapse_lbvh2_to_bvh4(bvh, sweeps=height + 2)
-    t2, tri2 = trace_rays(make_wide_bvh(bvh4), tris, o, d)
+    t2, _, _, _, tri2 = trace(*pack_bvh(make_wide_bvh(bvh4), tris), o, d)
     assert bool(jnp.all(tri2 == btri))
 
 
 def test_pathtracer_sah_builder():
-    from raytracer_tpu.pathtracer import PathTracer
+    from raytracer.pathtracer import PathTracer
 
     pt = PathTracer(width=64, height=64, builder="sah")
     pt.build_bvh(_scene(2))

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from raytracer_tpu.models.scene import Scene
-from raytracer_tpu.utils import procgen
-from raytracer_tpu.utils.gltf import extract_triangles, load_gltf
+from raytracer.models.scene import Scene
+from raytracer.utils import procgen
+from raytracer.utils.gltf import extract_triangles, load_gltf
 
 
 def test_glb_roundtrip_indexed(tmp_path, rng):

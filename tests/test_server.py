@@ -7,8 +7,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-from raytracer_tpu.server import api as api_server
-from raytracer_tpu.server import static as static_server
+from raytracer.server import api as api_server
+from raytracer.server import static as static_server
 
 
 @pytest.fixture()

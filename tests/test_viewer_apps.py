@@ -54,10 +54,10 @@ def test_app_debug_smoke(tmp_path):
 
 @pytest.fixture()
 def viewer():
-    from raytracer_tpu.models.camera import FPSCamera
-    from raytracer_tpu.pathtracer import PathTracer
-    from raytracer_tpu.server.viewer import ViewerState, make_viewer_server
-    from raytracer_tpu.utils import procgen
+    from raytracer.models.camera import FPSCamera
+    from raytracer.pathtracer import PathTracer
+    from raytracer.server.viewer import ViewerState, make_viewer_server
+    from raytracer.utils import procgen
 
     tracer = PathTracer(width=64, height=64)
     tracer.build_bvh(procgen.make_icosphere(2))
